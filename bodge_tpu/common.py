@@ -175,9 +175,10 @@ jsigma = jσ
 # Precision policy.
 #
 # The reference stores everything in complex128 (bodge/hamiltonian.py:63).
-# TPUs are f32-native; we therefore pick complex128 when the caller has
-# enabled jax_enable_x64 (e.g. the CPU parity test-suite) and complex64
-# otherwise (the TPU throughput path).
+# We pick complex128 when the caller has enabled jax_enable_x64 (e.g. the
+# CPU parity test-suite) and complex64 otherwise (the accelerator throughput
+# path: the H100 moves complex64 at twice the rate and its float64 rate is
+# half its float32 rate).
 # --------------------------------------------------------------------------
 def default_cdtype():
     """The default complex dtype for Hamiltonian storage."""

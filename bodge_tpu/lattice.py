@@ -12,7 +12,7 @@ Parity target: ``bodge/lattice.py`` — an abstract ``Lattice`` contract
   directions, for periodic boundary conditions.
 - ``__iter__`` yields on-site pairs, then bonds, then edges.
 
-TPU-native additions: every concrete lattice also exposes *vectorized*
+Array additions: every concrete lattice also exposes *vectorized*
 NumPy index/coordinate arrays (``site_coords``, ``bond_arrays``,
 ``edge_arrays``, ``index_array``) so that Hamiltonian assembly can be a
 handful of batched array ops instead of a Python-level loop over sites —
@@ -160,7 +160,7 @@ class CubicLattice(Lattice):
                     yield tuple(lo), tuple(hi)
                     yield tuple(hi), tuple(lo)
 
-    # -- Vectorized API (TPU-native) ---------------------------------------
+    # -- Vectorized API ---------------------------------------------------
     @cached_property
     def site_coords(self) -> np.ndarray:
         """``[N, 3]`` int32 coordinates of every site, in index order."""

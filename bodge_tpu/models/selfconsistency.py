@@ -32,7 +32,7 @@ from ..common import jσ2
 from ..ops import blocksparse as bs
 from ..ops.blocksparse import BLOCK, Skeleton
 from ..ops.chebyshev import _KERNELS, chebyshev_coefficients, spectral_bound
-from ..ops.spmm import spmm
+from ..ops.spmm import check_impl, spmm
 
 
 def data_with_onsite_swave(base_data, delta):
@@ -206,22 +206,6 @@ def _free_energy_dense(data, sk: Skeleton, T: float):
     return U - T * jnp.sum(jnp.log1p(jnp.exp(-Ep / T)))
 
 
-def _free_energy_kpm_pallas(data, sk: Skeleton, probes, coeffs, inv_scale):
-    """KPM free-energy trace through the fused Pallas kernel, differentiable
-    end-to-end: packing is a traced jnp permutation (its VJP is the inverse
-    permutation) and the fused step carries a custom VJP
-    (:func:`bodge_tpu.ops.pallas_spmm.cheb_step_pallas_ad`) — so the gap
-    equation's gradient rides the same hand-scheduled kernel as the sweep."""
-    from ..ops import pallas_spmm as pk
-
-    K = probes.shape[-1]
-    b = pk.pack_operator(data, sk, K)
-    v0 = pk.pack_vector(probes, sk)
-    mu = pk.moments_pallas_fused_ad(b, v0, sk, inv_scale, coeffs.shape[0], K)
-    acc = jnp.dot(coeffs.astype(jnp.float32), jnp.sum(mu, axis=1))
-    return 0.5 * acc / K * (sk.n_sites * BLOCK)
-
-
 def _free_energy_kpm(data, sk: Skeleton, T: float, probes, coeffs, inv_scale, impl):
     def H(v):
         return spmm(data, sk, v, impl=impl) * inv_scale
@@ -242,6 +226,15 @@ def _free_energy_kpm(data, sk: Skeleton, T: float, probes, coeffs, inv_scale, im
     return 0.5 * acc / probes.shape[-1] * (sk.n_sites * BLOCK)
 
 
+def _bind(fn, *arrays):
+    """``F_total(Δ) = fn(*arrays, Δ)``, jitted, with the operator and probe
+    arrays bound as pytree leaves of a :class:`jax.tree_util.Partial`.
+    Passed into a jitted caller as an argument, they stay arguments there
+    too; closed over, XLA would embed them as constants and constant-fold
+    the probe inner products at every compile."""
+    return jax.tree_util.Partial(jax.jit(fn), *arrays)
+
+
 def make_total_free_energy(
     system,
     V: float,
@@ -252,7 +245,6 @@ def make_total_free_energy(
     key=None,
     impl: str = "stencil",
     mesh=None,
-    overlap=None,
     delta_max: float = 2.0,
     pairing=None,
 ) -> Callable:
@@ -278,27 +270,20 @@ def make_total_free_energy(
     is estimated once with |Δ| = delta_max headroom, and the recursion
     diverges silently if the optimizer ever drives max|Δ| beyond it.  For
     strong coupling (BCS estimate Δ ≈ 2·bandwidth·exp(−1/(V·DOS)) above
-    ~2, or V ≳ 4t), raise ``delta_max`` accordingly (advisor finding: the
-    headroom used to be a fixed 2.0 with no knob and no documentation).
+    ~2, or V ≳ 4t), raise ``delta_max`` accordingly.
+
+    ``mesh`` (``method="kpm"`` only): a device mesh with a ``rows`` axis
+    (:func:`bodge_tpu.parallel.make_row_mesh`).  The operator is then
+    row-partitioned over it and every SpMM of the trace runs as the
+    halo-exchange stencil of :mod:`bodge_tpu.parallel.sharded`; the
+    objective and its gradient equal the single-device ones to rounding.
     """
     sk = system.skeleton
     T = float(temperature)
     struct = _resolve_pairing(pairing, sk)
-
-    if method == "kpm" and impl == "pallas_sharded":
-        # Row-sharded, complex-free branch (runs on TPU backends without
-        # complex support); must not touch the complex device path below.
-        return _make_total_free_energy_pallas_sharded(
-            system, V, T, order, samples, key, mesh=mesh, overlap=overlap,
-            delta_max=delta_max, struct=struct,
-        )
-    if mesh is not None or overlap is not None:
-        # Silently dropping these would let a user believe their solve ran
-        # on a custom mesh / with the overlap split (review finding).
-        raise ValueError(
-            "mesh= and overlap= apply only to method='kpm', "
-            "impl='pallas_sharded'"
-        )
+    check_impl(impl)
+    if mesh is not None and method != "kpm":
+        raise ValueError("mesh= applies only to method='kpm'")
 
     base = jnp.asarray(system.data)
 
@@ -313,19 +298,17 @@ def make_total_free_energy(
 
     if method == "dense":
 
-        def F_total(delta):
+        def F_total(base, delta):
             data = insert(base, delta)
             return _free_energy_dense(data, sk, T) + penalty(delta)
 
-        return jax.jit(F_total)
+        return _bind(F_total, base)
 
     if method == "kpm":
         # Spectral bound from a generous Δ headroom so the scale stays valid
-        # across the optimization trajectory.  (The bound itself is a
-        # one-time power iteration — always cheap on the XLA stencil.)
-        bound_impl = "stencil" if impl == "pallas" else impl
+        # across the optimization trajectory (a one-time power iteration).
         probe_delta = jnp.full((sk.n_sites,), float(delta_max), dtype=base.dtype)
-        scale = spectral_bound(insert(base, probe_delta), sk, impl=bound_impl)
+        scale = spectral_bound(insert(base, probe_delta), sk, impl=impl)
 
         if T == 0:
             g = lambda E: -np.abs(E) / 2
@@ -342,161 +325,29 @@ def make_total_free_energy(
         z = jax.random.rademacher(key, (sk.n_sites, BLOCK, samples), dtype=rdtype)
         z = z.astype(base.dtype) / jnp.sqrt(jnp.asarray(sk.n_sites * BLOCK, rdtype))
 
-        if impl == "pallas":
-            from ..ops import pallas_spmm as pk
+        if mesh is not None:
+            from ..parallel.sharded import RowSharding, _trace_sharded_jit
 
-            if pk.plan(sk, samples) is None:
-                # plan() declines for two distinct reasons (advisor
-                # finding): no kernel for the skeleton at all, or a
-                # probe count blowing the kernel's VMEM cap.
-                raise ValueError(
-                    f"impl='pallas' declined: {pk.decline_reason(sk, samples)} "
-                    f"(use impl='stencil', or fewer samples)"
-                )
+            rs = RowSharding(sk, mesh)
+            base_sh, z_sh = rs.shard_data(base), rs.shard_vector(z)
+            order_ = coeffs.shape[0]
 
-            def F_total(delta):
+            def F_total(base, z, delta):
                 data = insert(base, delta)
-                F = _free_energy_kpm_pallas(data, sk, z, coeffs, inv)
+                tr = _trace_sharded_jit(rs, data, z, coeffs, inv, order_)
+                F = 0.5 * tr / samples * (sk.n_sites * BLOCK)
                 return F + penalty(delta)
 
-            return jax.jit(F_total)
+            return _bind(F_total, base_sh, z_sh)
 
-        def F_total(delta):
+        def F_total(base, z, delta):
             data = insert(base, delta)
             F = _free_energy_kpm(data, sk, T, z, coeffs, inv, impl)
             return F + penalty(delta)
 
-        return jax.jit(F_total)
+        return _bind(F_total, base, z)
 
     raise ValueError(f"Unknown method '{method}'")
-
-
-def _make_total_free_energy_pallas_sharded(
-    system, V: float, T: float, order: int, samples: int, key,
-    mesh=None, overlap=None, delta_max: float = 2.0, struct=None,
-) -> Callable:
-    """``F_total(Δ_real)`` through the row-sharded Pallas plane kernel.
-
-    The multi-chip "training step" (round-3 verdict item 9): every SpMM of
-    the KPM free-energy trace runs in the hand-scheduled halo-exchange
-    kernel over the device mesh, and the gradient rides the kernels'
-    custom VJPs plus the transposed ppermute ring.  The traced graph is
-    COMPLEX-FREE — the pairing field is inserted directly into the packed
-    real operator (:func:`bodge_tpu.ops.pallas_spmm.plane_packed_insert_swave`)
-    — which is what lets it execute on TPU backends without complex
-    support.  Δ is a REAL field (the returned callable carries
-    ``real_input = True`` so :func:`solve_gap` skips the complex cast);
-    the global U(1) phase is a gauge choice.
-    """
-    from ..common import jσ2 as _js2
-    from ..ops import pallas_spmm as pk
-    from ..parallel.pallas_sharded import (
-        _moments_pallas_sharded_jit,
-        _remat_chunk_for,
-        _resolve_overlap,
-        pack_operator_sharded,
-        pack_vector_sharded,
-    )
-    from ..parallel.sharded import AXIS, RowSharding
-
-    sk = system.skeleton
-    N = sk.n_sites
-    if pk.plane_layout(sk, samples) is None:
-        # Same two-cause diagnosis as pallas_sharded._require_plane_shardable
-        # (decline_reason consults plan(), which can pick the flat layout
-        # and return None here — review finding).
-        if pk.plane_layout(sk, 1) is not None:
-            raise ValueError(
-                f"impl='pallas_sharded' declined: samples={samples} exceeds "
-                f"the plane kernel's VMEM working-set cap for lattice shape "
-                f"{tuple(sk.shape)}; use fewer samples"
-            )
-        raise ValueError(
-            "impl='pallas_sharded' declined: needs a cubic lattice with "
-            "Lx > 1 and Ly·Lz > 1"
-        )
-
-    host = np.array(system.host_data())
-    # Spectral bound with |Δ| = delta_max headroom (host-side insertion;
-    # the bound's power iteration uses the backend's complex-free default
-    # impl).  The Chebyshev recursion diverges if the optimizer drives
-    # max|Δ| beyond delta_max — see make_total_free_energy's docstring.
-    probe = np.array(host)
-    if struct is None:
-        j2 = np.asarray(_js2, dtype=probe.dtype)
-        probe[:, 0, 0:2, 2:4] = float(delta_max) * j2
-        probe[:, 0, 2:4, 0:2] = float(delta_max) * np.conj(j2).T
-    else:
-        m_h = np.asarray(
-            bond_field(np.full((N,), float(delta_max)), sk, struct)
-        ).astype(probe.real.dtype)
-        st = np.asarray(struct, probe.dtype)
-        stH = np.conj(np.swapaxes(st[np.asarray(sk.trans_slot)], -1, -2))
-        probe[:, :, 0:2, 2:4] = m_h[:, :, None, None] * st[None]
-        probe[:, :, 2:4, 0:2] = m_h[:, :, None, None] * stH[None]
-    scale = float(spectral_bound(probe, sk))
-
-    if T == 0:
-        g = lambda E: -np.abs(E) / 2
-    else:
-        g = lambda E: -np.abs(E) / 2 - T * np.log1p(np.exp(-np.abs(E) / T))
-    coeffs = chebyshev_coefficients(lambda x: g(scale * x), order)
-    coeffs = jnp.asarray(
-        np.asarray(coeffs * _KERNELS["jackson"](order), np.float32)
-    )
-    inv = jnp.float32(1.0 / scale)
-
-    if mesh is None:
-        # Auto (not Explicit) mesh axes: the gap field Δ enters the jit as
-        # a plain replicated array, which classic GSPMD propagation
-        # reconciles with the row-sharded captured operator — Explicit
-        # axes would demand a jax.set_mesh context, which is unavailable
-        # inside an outer jax.jit(jax.grad(...)) trace.
-        from jax.sharding import AxisType
-
-        devs = jax.devices()
-        mesh = jax.make_mesh(
-            (len(devs),), (AXIS,), devices=devs, axis_types=(AxisType.Auto,)
-        )
-    rs = RowSharding(sk, mesh)
-    ov = _resolve_overlap(overlap, sk.shape[0] // rs.n_shards)
-
-    b_base = pack_operator_sharded(rs, host)
-    # Shared probe builder (full key entropy; identical keys → identical
-    # probes across all trace-estimator paths — advisor finding).
-    from ..ops.chebyshev import rademacher_probes
-
-    z = rademacher_probes(N, samples, key, np.float64, default_seed=11)
-    z = (z / np.sqrt(N * BLOCK)).astype(np.complex64)
-    v_sh = pack_vector_sharded(rs, z)
-
-    # √steps reverse-mode checkpointing: the gap gradient differentiates
-    # the whole moment scan, whose plain backward stores O(order) vector
-    # copies — 34 GB at 512², order 512.  The two-level schedule keeps it
-    # O(√order), which is what lets the training step run at 512²+ on one
-    # chip (bit-identical results; the recompute replays the same graph).
-    remat_chunk = _remat_chunk_for(order, "auto")
-
-    def _F(delta):
-        # Auto mesh axes (see the mesh construction above): GSPMD
-        # propagates b_base's row sharding through the insert and
-        # reconciles the replicated Δ without an explicit constraint.
-        if struct is None:
-            b = pk.plane_packed_insert_swave(b_base, delta, sk)
-            cond = jnp.sum(delta.astype(jnp.float32) ** 2) / V
-        else:
-            m = bond_field(delta.astype(jnp.float32), sk, struct)
-            b = pk.plane_packed_insert_bond(b_base, m, sk, struct)
-            cond = _bond_penalty(m, struct, V)
-        mu = _moments_pallas_sharded_jit(
-            rs, b, v_sh, inv, order, samples, ov, remat_chunk
-        )
-        F = 0.5 * jnp.dot(coeffs, jnp.sum(mu, axis=1)) / samples * (N * BLOCK)
-        return F + cond
-
-    F_total = jax.jit(_F)
-    F_total.real_input = True
-    return F_total
 
 
 def solve_gap(
@@ -523,14 +374,8 @@ def solve_gap(
     F_total = make_total_free_energy(system, V, temperature, method=method, **kwargs)
     N = system.skeleton.n_sites
     cdtype = system.dtype
-    # Host-side dtype math: the complex dtype must not touch the device
-    # here (the pallas_sharded path exists precisely for backends without
-    # complex support).
     rdtype = np.real(np.zeros((), cdtype)).dtype
-    # Complex-free F_totals (impl="pallas_sharded") take the real field
-    # directly; the others expect the system's complex dtype.
-    cast = (lambda x: x) if getattr(F_total, "real_input", False) \
-        else (lambda x: x.astype(cdtype))
+    cast = lambda x: x.astype(cdtype)
 
     # Optimize a REAL gap field (the global U(1) phase is a gauge choice;
     # complex / phase-textured problems should drive F_total directly).
@@ -541,7 +386,7 @@ def solve_gap(
         x0 = jnp.asarray(np.broadcast_to(np.real(delta0), (N,)), dtype=rdtype)
         expand = lambda x: cast(x)
 
-    loss = lambda x: F_total(expand(x))
+    loss = lambda x, F: F(expand(x))
     grad = jax.jit(jax.grad(loss))
 
     # Plain momentum descent keeps dependencies light; for custom loops
@@ -549,7 +394,7 @@ def solve_gap(
     x = x0
     m = jnp.zeros_like(x0)
     for _ in range(steps):
-        m = 0.9 * m + grad(x)
+        m = 0.9 * m + grad(x, F_total)
         x = x - learning_rate * m
 
-    return np.asarray(expand(x)), float(loss(x))
+    return np.asarray(expand(x)), float(loss(x, F_total))

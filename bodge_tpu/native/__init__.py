@@ -1,6 +1,6 @@
 """Native (C++) host-runtime tier, bound via ctypes.
 
-The TPU compute path is JAX/XLA/Pallas; this package provides the native
+The device compute path is JAX/XLA; this package provides the native
 host-side runtime around it — the parts the reference delegates to SciPy's
 C internals plus the assembly hot loop it runs in pure Python
 (``bodge/hamiltonian.py:92-126``):

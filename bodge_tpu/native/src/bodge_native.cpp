@@ -1,6 +1,6 @@
 // bodge_tpu native host runtime.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the *host-side*
+// The device compute path is JAX/XLA; this library is the *host-side*
 // native tier: fused assembly scatter, generic-skeleton mirror resolution,
 // and the Hermiticity invariant check, operating directly on the ELL block
 // arrays while they are host-resident (before the first device upload).

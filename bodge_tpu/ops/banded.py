@@ -141,7 +141,7 @@ def _solve_banded(
         # ALWAYS solve in double precision: with complex64 block data the
         # band inherited the dtype and LAPACK silently ran single-precision
         # chbevd — measured 3.1e-6 eigenvalue error at dim 40 000 on the
-        # 100×100 headline (caught when the TPU iterative solver and an
+        # 100×100 headline (caught when the device iterative solver and an
         # f64 shift-invert cross-check agreed against it).  The upcast is
         # O(nnz) and the z-driver ~2× the c-driver — correctness first.
         data = data.astype(np.complex128)

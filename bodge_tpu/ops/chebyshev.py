@@ -1,8 +1,8 @@
 """Chebyshev / kernel-polynomial (KPM) spectral expansion.
 
 [NEW SCOPE] — the reference computes LDOS with a per-energy sparse-LU
-resolvent solve (``bodge/hamiltonian.py:323-387``), which has no TPU
-analog.  This module computes the same observables through Chebyshev
+resolvent solve (``bodge/hamiltonian.py:323-387``), which has no
+accelerator analog in JAX.  This module computes the same observables through Chebyshev
 polynomial expansion driven by repeated block-sparse SpMM — the classic
 KPM (Weiße et al., Rev. Mod. Phys. 78, 275 (2006)) reformulated for XLA:
 static-order `lax.scan` recursions over stencil SpMMs, Jackson/Lorentz
@@ -23,8 +23,6 @@ Pieces:
 
 from __future__ import annotations
 
-import os
-import warnings
 from functools import partial
 from typing import Optional
 
@@ -35,22 +33,9 @@ import jax.numpy as jnp
 from jax import lax
 
 from .blocksparse import BLOCK, Skeleton
-from .spmm import spmm
+from .spmm import check_impl, spmm
 
 DEFAULT_ORDER = 512
-
-
-def default_impl() -> str:
-    """Backend-appropriate SpMM implementation: planar (split-complex f32)
-    on TPU — where complex scan carries are unsupported and f32 is the
-    native dtype — and the complex stencil elsewhere."""
-    from ..hamiltonian import use_planar_device_path
-
-    return "planar" if use_planar_device_path() else "stencil"
-
-
-def _resolve_impl(impl):
-    return default_impl() if impl in (None, "auto") else impl
 
 
 def _rescaled_op(data, sk: Skeleton, inv_scale, impl: str):
@@ -60,7 +45,7 @@ def _rescaled_op(data, sk: Skeleton, inv_scale, impl: str):
     return H_tilde
 
 
-def spectral_bound(data, sk: Skeleton, iters: int = 60, key=None, impl: str = None):
+def spectral_bound(data, sk: Skeleton, iters: int = 60, key=None, impl: str = "stencil"):
     """Estimate ‖H‖₂ by power iteration on the Hermitian operator.
 
     The Rayleigh-quotient estimate never overshoots λ_max but can sit
@@ -69,39 +54,12 @@ def spectral_bound(data, sk: Skeleton, iters: int = 60, key=None, impl: str = No
     robustly — Chebyshev recursions diverge exponentially if any
     eigenvalue escapes the interval.
     """
-    impl = _resolve_impl(impl)
-    if impl == "planar":
-        from . import planar as pl_ops
-
-        dp = data if _is_planar(data) else pl_ops.to_planar(_host(data))
-        return pl_ops.spectral_bound_planar(dp, sk, iters=iters)
-    if impl == "pallas_gather":
-        # The gather kernel packs per call; route the one-time bound
-        # estimate through the backend's default (planar on TPU — the
-        # only complex-free XLA form there; stencil/gather on CPU).
-        impl = default_impl()
-        if impl == "planar":
-            from . import planar as pl_ops
-
-            dp = data if _is_planar(data) else pl_ops.to_planar(_host(data))
-            return pl_ops.spectral_bound_planar(dp, sk, iters=iters)
+    check_impl(impl)
     if key is None:
         key = jax.random.PRNGKey(0)
     N = sk.n_sites
     v = jax.random.normal(key, (N, BLOCK, 1), dtype=data.dtype)
     return float(_power_iteration(data, sk, v, iters, impl)) * 1.05
-
-
-def _is_planar(arr, base_ndim: int = 4) -> bool:
-    return (
-        arr.ndim == base_ndim + 1
-        and arr.shape[0] == 2
-        and not np.iscomplexobj(arr)
-    )
-
-
-def _host(arr) -> np.ndarray:
-    return arr if isinstance(arr, np.ndarray) else np.asarray(arr)
 
 
 def _host_dtype(data) -> np.dtype:
@@ -187,96 +145,6 @@ def _moments_scan(data, sk: Skeleton, v0, inv_scale, order: int, impl: str):
     return _doubled_moment_scan(H, inner, v0, order)  # [order, K]
 
 
-@partial(jax.jit, static_argnames=("sk", "order", "K"))
-def _moments_scan_packed(b_packed, v0_packed, sk: Skeleton, inv_scale, order: int, K: int):
-    """Moment recursion entirely in the Pallas packed layout.
-
-    Packing is a permutation plus zero padding, so inner products computed
-    in packed space equal the unpacked ones exactly; the operator is packed
-    once per sweep instead of once per SpMM.
-    """
-    from .pallas_spmm import _packed_inner, spmm_pallas_packed
-
-    def inner(a, b):
-        return _packed_inner(a, b, sk, K)
-
-    def H(v):
-        return spmm_pallas_packed(b_packed, v, sk, K) * inv_scale
-
-    return _doubled_moment_scan(H, inner, v0_packed, order)
-
-
-def _upgrade_to_pallas(impl: str, data, v0_or_K, sk: Skeleton) -> str:
-    """Planar → fused-Pallas upgrade when the kernel covers this case.
-
-    The planar XLA stencil is the portable TPU path; the hand-scheduled
-    Pallas kernel computes the same recursion ~30× faster (one streaming
-    pass per step).  Upgrade only for host/complex inputs — planar-packed
-    arrays would need a host round-trip to repack.  Callers apply this
-    only when the implementation was chosen automatically (impl=None /
-    "auto"); an explicitly requested "planar" stays planar so the paths
-    remain individually testable.  BODGE_PALLAS_UPGRADE=1 extends the
-    upgrade to non-TPU backends (interpret-mode kernels) for CI coverage
-    of the dispatch itself."""
-    if impl != "planar" or _is_planar(data):
-        return impl
-    K = v0_or_K if isinstance(v0_or_K, int) else int(np.shape(v0_or_K)[-1])
-    from .pallas_gather import supported_gather
-    from .pallas_spmm import decline_reason, supported
-
-    forced = os.environ.get("BODGE_PALLAS_UPGRADE") == "1"
-    try:
-        if forced or jax.default_backend() == "tpu":
-            if supported(sk, K) or (K > 4 and supported(sk, 4)):
-                # Either directly, or via moments()' probe-column chunking
-                # (wide LDOS-map batches split into feasible sweeps over
-                # one packed operator — review finding: the chunk path was
-                # unreachable from auto dispatch, dropping big maps onto
-                # the planar cliff).
-                return "pallas"
-            if not sk.stencil and (
-                supported_gather(sk, K) or supported_gather(sk, min(K, 4))
-            ):
-                # Generic/FrozenLattice skeletons: the RCM-banded gather
-                # kernel (one-hot MXU gather) instead of the planar cliff.
-                return "pallas_gather"
-            # TPU users silently landing here pay a measured ~175×
-            # per-step cliff vs the Pallas kernel (bench r03: 0.34 vs
-            # 60+ Gnnz/s on the identical problem) — never downgrade
-            # without saying why (round-3 verdict item 6).
-            warnings.warn(
-                "Falling back to the XLA planar stencil (~100× slower per "
-                f"SpMM than the Pallas kernel) because {decline_reason(sk, K)}.",
-                RuntimeWarning,
-                stacklevel=3,
-            )
-    except Exception:
-        pass
-    return impl
-
-
-def _operator_storage(operator_dtype):
-    """Resolve the Pallas operator-storage dtype knob.
-
-    ``None`` consults the BODGE_OPERATOR_STORAGE env var ("bf16" halves the
-    operator's HBM *footprint and traffic*; vectors and accumulation stay
-    f32 — drift is quantified in tests/test_pallas.py).  Measured effect on
-    throughput is layout-dependent: the small-N flat layout sits at the
-    VPU-compute knee, where bf16 storage buys capacity but no speed
-    (bench r02: 63.2 µs bf16 vs 62.3 µs f32 at 200×200); the large-N plane
-    layout is operator-stream-dominated, where the traffic cut is the
-    dominant term.  Treat it primarily as a capacity knob — benchmark your
-    own config before relying on it for speed.  Explicit "f32"/"bf16"
-    strings or dtypes override."""
-    if operator_dtype is None:
-        operator_dtype = os.environ.get("BODGE_OPERATOR_STORAGE", "")
-    if operator_dtype in ("", "f32", "float32", np.float32, jnp.float32):
-        return None
-    if operator_dtype in ("bf16", "bfloat16"):
-        return jnp.bfloat16
-    return operator_dtype
-
-
 # Identity trace probes materialize a (4N)² dense array; past this many
 # orbitals that silently becomes a multi-GB host allocation (round-1 review
 # finding), so demand an explicit stochastic estimator instead.
@@ -293,151 +161,11 @@ def _identity_probes(N: int, dtype, what: str) -> np.ndarray:
     return np.eye(N * BLOCK, dtype=dtype).reshape(N, BLOCK, N * BLOCK)
 
 
-def moments(
-    data, sk: Skeleton, v0, order: int, scale: float, impl: str = None,
-    operator_dtype=None,
-):
-    """Chebyshev moments of H/scale against probe vectors ``v0: [N, 4, K]``.
-
-    ``operator_dtype``: Pallas-path operator-storage dtype ("bf16" halves
-    the dominant HBM stream; default f32, or the BODGE_OPERATOR_STORAGE
-    env knob).
-    """
-    auto = impl in (None, "auto")
-    impl = _resolve_impl(impl)
-    if auto and not _is_planar(v0, base_ndim=3):
-        # Auto-selected planar upgrades to the fused kernel; an explicit
-        # impl="planar" is honored as-is (advisor finding: the planar path
-        # must stay forceable for cross-checks).
-        impl = _upgrade_to_pallas(impl, data, v0, sk)
-    if impl == "planar":
-        from . import planar as pl_ops
-
-        dp = data if _is_planar(data) else pl_ops.to_planar(_host(data))
-        vp = v0 if _is_planar(v0, base_ndim=3) else pl_ops.to_planar(_host(v0))
-        inv = jnp.asarray(1.0 / scale, dtype=jnp.float32)
-        return pl_ops.moments_planar(dp, sk, vp, inv, order)
-    if impl == "pallas":
-        from .pallas_spmm import (
-            decline_reason,
-            moments_pallas_fused,
-            pack_operator,
-            pack_vector,
-            plan,
-            supported,
-        )
-
-        K = v0.shape[-1]
-        if supported(sk, K):
-            b_packed = pack_operator(
-                data, sk, K, operator_dtype=_operator_storage(operator_dtype)
-            )
-            v0_packed = pack_vector(v0, sk)
-            return moments_pallas_fused(
-                b_packed, v0_packed, sk, jnp.float32(1.0 / scale), order, K
-            )
-        # Large probe batches (LDOS maps: K = 4·n_sites) exceed the
-        # kernels' per-step VMEM working set.  Probe columns are
-        # independent, so split them into the widest feasible chunks and
-        # run one fused sweep per chunk over the SAME packed operator —
-        # still far faster than the XLA fallback (which trades kernel
-        # traffic for a ~100× slower stencil).
-        kc = next((k for k in (32, 16, 8, 4) if k < K and supported(sk, k)), None)
-        if kc is not None:
-            lo = plan(sk, kc)
-            b_packed = pack_operator(
-                data, sk, kc, operator_dtype=_operator_storage(operator_dtype),
-                layout=lo,
-            )
-            inv = jnp.float32(1.0 / scale)
-            host = isinstance(v0, np.ndarray)
-            xp = np if host else jnp
-            outs = []
-            for i0 in range(0, K, kc):
-                cols = v0[..., i0 : i0 + kc]
-                pad = kc - cols.shape[-1]
-                if pad:
-                    cols = xp.concatenate(
-                        [cols, xp.zeros(cols.shape[:-1] + (pad,), dtype=cols.dtype)],
-                        axis=-1,
-                    )
-                v0p = pack_vector(cols, sk, layout=lo)
-                mu = moments_pallas_fused(b_packed, v0p, sk, inv, order, kc)
-                outs.append(mu[:, : kc - pad] if pad else mu)
-            return jnp.concatenate(outs, axis=1)
-        warnings.warn(
-            f"impl='pallas' cannot be honored (no feasible probe-chunk "
-            f"width: {decline_reason(sk, K)}); falling back to the XLA "
-            "stencil (~100× slower per SpMM)",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-        impl = "stencil"
-    if impl == "pallas_gather":
-        from .pallas_gather import (
-            moments_gather_packed,
-            pack_gather_offsets,
-            pack_gather_operator,
-            pack_gather_vector,
-            plan_gather,
-        )
-
-        K = v0.shape[-1]
-        inv32 = jnp.float32(1.0 / scale)
-        gl = plan_gather(sk, K)
-        if gl is not None:
-            b = pack_gather_operator(
-                _host(data), sk, gl, operator_dtype=_operator_storage(operator_dtype)
-            )
-            off = pack_gather_offsets(sk, gl)
-            v0p = pack_gather_vector(_host(v0), sk, gl)
-            return moments_gather_packed(b, off, v0p, sk, gl, inv32, order, K)
-        # Probe columns are independent — chunk wide batches like the
-        # stencil fast path does, over one packed operator.
-        kc = next((k for k in (32, 16, 8, 4) if k < K and plan_gather(sk, k)), None)
-        if kc is not None:
-            gl = plan_gather(sk, kc)
-            b = pack_gather_operator(
-                _host(data), sk, gl, operator_dtype=_operator_storage(operator_dtype)
-            )
-            off = pack_gather_offsets(sk, gl)
-            v0h = _host(v0)
-            outs = []
-            for i0 in range(0, K, kc):
-                cols = v0h[..., i0 : i0 + kc]
-                pad = kc - cols.shape[-1]
-                if pad:
-                    cols = np.concatenate(
-                        [cols, np.zeros(cols.shape[:-1] + (pad,), dtype=cols.dtype)],
-                        axis=-1,
-                    )
-                v0p = pack_gather_vector(cols, sk, gl)
-                mu = moments_gather_packed(b, off, v0p, sk, gl, inv32, order, kc)
-                outs.append(mu[:, : kc - pad] if pad else mu)
-            return jnp.concatenate(outs, axis=1)
-        # An explicitly requested gather kernel with no feasible plan (nor
-        # chunk width) must not degrade silently (advisor finding — the
-        # same decline_reason pattern as the auto path and impl='pallas').
-        warnings.warn(
-            f"impl='pallas_gather' cannot be honored (no feasible gather "
-            f"plan for K={K} on this skeleton); falling back to the XLA "
-            "stencil/gather path (~100× slower per SpMM)",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-        impl = "stencil"
+def moments(data, sk: Skeleton, v0, order: int, scale: float, impl: str = "stencil"):
+    """Chebyshev moments of H/scale against probe vectors ``v0: [N, 4, K]``:
+    ``μ_m[k] = Re ⟨v0_k | T_m(H/scale) | v0_k⟩``, shape ``[order, K]``."""
+    check_impl(impl)
     inv = jnp.asarray(1.0 / scale, dtype=jnp.real(jnp.zeros((), data.dtype)).dtype)
-    if impl == "pallas_unfused":
-        from .pallas_spmm import pack_operator, pack_vector, supported
-
-        K = v0.shape[-1]
-        if supported(sk, K):
-            b_packed = pack_operator(data, sk, K)
-            v0_packed = pack_vector(v0, sk)
-            return _moments_scan_packed(
-                b_packed, v0_packed, sk, jnp.asarray(inv, jnp.float32), order, K
-            )
-        impl = "stencil"
     return _moments_scan(data, sk, v0, inv, order, impl)
 
 
@@ -478,7 +206,7 @@ def reconstruct_density(mu, energies_scaled, scale: float, kernel: str = "jackso
     # T_m(x) = cos(m·arccos x), evaluated for all orders at once.
     Tmx = jnp.cos(m[None, :] * jnp.arccos(x)[:, None])  # [M, order]
     weights = jnp.where(m == 0, 1.0, 2.0) * g
-    series = Tmx @ (weights[:, None] * mu)  # [M, K]
+    series = jnp.matmul(Tmx, weights[:, None] * mu, precision=lax.Precision.HIGHEST)  # [M, K]
     return series / (np.pi * scale * jnp.sqrt(1.0 - x[:, None] ** 2))
 
 
@@ -517,8 +245,7 @@ def ldos_kpm(
     kernel: str = "jackson",
     scale: Optional[float] = None,
     eta: Optional[float] = None,
-    impl: str = None,
-    operator_dtype=None,
+    impl: str = "stencil",
 ) -> np.ndarray:
     """Local density of states at one site via KPM.
 
@@ -532,9 +259,8 @@ def ldos_kpm(
     reproduces the resolvent at ε+iη — the direct analog of the
     reference's broadened sparse solve.
     """
-    impl_r = _resolve_impl(impl)
     if scale is None:
-        scale = spectral_bound(data, sk, impl=impl_r)
+        scale = spectral_bound(data, sk, impl=impl)
     if eta is not None:
         kernel = "lorentz"
         if order is None:
@@ -542,14 +268,12 @@ def ldos_kpm(
     order = order or DEFAULT_ORDER
 
     N = sk.n_sites
-    # Probes built host-side: planar backends must not run complex device
-    # scatters, and a one-hot build is free on the host anyway.
-    dtype = np.complex64 if _is_planar(data) else _host_dtype(data)
+    # Probes built host-side: a one-hot build is free on the host.
+    dtype = _host_dtype(data)
     v0 = np.zeros((N, BLOCK, BLOCK), dtype=dtype)
     v0[site_index, np.arange(BLOCK), np.arange(BLOCK)] = 1.0
 
-    mu = moments(data, sk, v0, order, scale, impl=impl,
-                 operator_dtype=operator_dtype)  # [order, 4]
+    mu = moments(data, sk, v0, order, scale, impl=impl)  # [order, 4]
     energies = np.array(energies, dtype=float)
     x = np.clip(energies / scale, -0.999999, 0.999999)
     dens = reconstruct_density(mu, jnp.asarray(x), scale, kernel=kernel)  # [M, 4]
@@ -566,8 +290,7 @@ def ldos_kpm_sites(
     kernel: str = "jackson",
     scale: Optional[float] = None,
     eta: Optional[float] = None,
-    impl: str = None,
-    operator_dtype=None,
+    impl: str = "stencil",
 ) -> np.ndarray:
     """Batched KPM LDOS for many sites in one moment sweep.
 
@@ -576,9 +299,8 @@ def ldos_kpm_sites(
     Returns ``[n_sites, n_energies]`` (electron component, as in
     :func:`ldos_kpm`).
     """
-    impl_r = _resolve_impl(impl)
     if scale is None:
-        scale = spectral_bound(data, sk, impl=impl_r)
+        scale = spectral_bound(data, sk, impl=impl)
     if eta is not None:
         kernel = "lorentz"
         if order is None:
@@ -587,11 +309,10 @@ def ldos_kpm_sites(
 
     site_indices = np.asarray(site_indices, dtype=np.int64)
     n_sites = len(site_indices)
-    dtype = np.complex64 if _is_planar(data) else _host_dtype(data)
+    dtype = _host_dtype(data)
     v0 = ldos_site_probes(sk.n_sites, site_indices, dtype)
 
-    mu = moments(data, sk, v0, order, scale, impl=impl,
-                 operator_dtype=operator_dtype)  # [order, 4·n_sites]
+    mu = moments(data, sk, v0, order, scale, impl=impl)  # [order, 4·n_sites]
     energies = np.array(energies, dtype=float)
     x = np.clip(energies / scale, -0.999999, 0.999999)
     dens = np.asarray(reconstruct_density(mu, jnp.asarray(x), scale, kernel=kernel))
@@ -609,8 +330,7 @@ def dos_kpm(
     eta: Optional[float] = None,
     samples: Optional[int] = 16,
     key=None,
-    impl: str = None,
-    operator_dtype=None,
+    impl: str = "stencil",
 ) -> np.ndarray:
     """Total density of states Tr δ(ε−H) via KPM.
 
@@ -620,9 +340,8 @@ def dos_kpm(
     vectors give an unbiased stochastic estimate.  Counts all 4N Nambu⊗Spin
     orbitals (particle-hole symmetric around ε = 0).
     """
-    impl_r = _resolve_impl(impl)
     if scale is None:
-        scale = spectral_bound(data, sk, impl=impl_r)
+        scale = spectral_bound(data, sk, impl=impl)
     if eta is not None:
         kernel = "lorentz"
         if order is None:
@@ -630,7 +349,7 @@ def dos_kpm(
     order = order or DEFAULT_ORDER
 
     N = sk.n_sites
-    dtype = np.complex64 if _is_planar(data) else _host_dtype(data)
+    dtype = _host_dtype(data)
     if samples is None:
         v0 = _identity_probes(N, dtype, "DOS")
         norm = 1.0
@@ -638,8 +357,7 @@ def dos_kpm(
         v0 = rademacher_probes(N, samples, key, dtype, default_seed=1)
         norm = 1.0 / samples
 
-    mu = moments(data, sk, v0, order, scale, impl=impl,
-                 operator_dtype=operator_dtype)  # [order, K]
+    mu = moments(data, sk, v0, order, scale, impl=impl)  # [order, K]
     mu_tr = jnp.sum(mu, axis=1) * norm  # trace estimate per order
 
     energies = np.array(energies, dtype=float)
@@ -668,7 +386,7 @@ def _trace_fn_scan(data, sk: Skeleton, probes, coeffs, inv_scale, order: int, im
         return jnp.real(jnp.sum(jnp.conj(a) * b))
 
     mu = _doubled_moment_scan(H, inner, probes, order)  # [order]
-    return jnp.dot(coeffs[: mu.shape[0]], mu)
+    return jnp.dot(coeffs[: mu.shape[0]], mu, precision=lax.Precision.HIGHEST)
 
 
 def trace_function(
@@ -680,8 +398,7 @@ def trace_function(
     samples: Optional[int] = None,
     key=None,
     kernel: str = "jackson",
-    impl: str = None,
-    operator_dtype=None,
+    impl: str = "stencil",
 ) -> float:
     """Tr fn(H) by Chebyshev expansion.
 
@@ -691,36 +408,18 @@ def trace_function(
     Otherwise a Hutchinson estimator with ``samples`` Rademacher vectors is
     used — unbiased, with O(1/√samples) stochastic error.
     """
-    auto = impl in (None, "auto")
-    impl = _resolve_impl(impl)
+    check_impl(impl)
     coeffs = chebyshev_coefficients(lambda x: fn(scale * x), order)
     coeffs = coeffs * _KERNELS[kernel](order)
     N = sk.n_sites
 
-    dtype = np.complex64 if _is_planar(data) else _host_dtype(data)
+    dtype = _host_dtype(data)
     if samples is None:
         probes = _identity_probes(N, dtype, "trace")
         norm = 1.0
     else:
         probes = rademacher_probes(N, samples, key, dtype)
         norm = 1.0 / samples
-
-    if auto:
-        impl = _upgrade_to_pallas(impl, data, probes, sk)
-    if impl == "pallas":
-        mu = moments(data, sk, probes, order, scale, impl="pallas",
-                     operator_dtype=operator_dtype)  # [order, K]
-        return float(jnp.dot(jnp.asarray(coeffs, jnp.float32), jnp.sum(mu, axis=1))) * norm
-    if impl == "planar":
-        from . import planar as pl_ops
-
-        dp = data if _is_planar(data) else pl_ops.to_planar(_host(data))
-        zp = pl_ops.to_planar(probes)
-        inv = jnp.asarray(1.0 / scale, dtype=jnp.float32)
-        est = pl_ops.trace_fn_planar(
-            dp, sk, zp, jnp.asarray(coeffs.astype(np.float32)), inv, order
-        )
-        return float(est) * norm
 
     coeffs = jnp.asarray(coeffs)
     rdtype = jnp.real(jnp.zeros((), data.dtype)).dtype
@@ -737,8 +436,7 @@ def free_energy_kpm(
     samples: Optional[int] = None,
     key=None,
     scale: Optional[float] = None,
-    impl: str = None,
-    operator_dtype=None,
+    impl: str = "stencil",
 ) -> float:
     """Landau free energy F = U − T·S without diagonalization.
 
@@ -761,6 +459,5 @@ def free_energy_kpm(
 
     tr = trace_function(
         data, sk, g, order, scale, samples=samples, key=key, impl=impl,
-        operator_dtype=operator_dtype,
     )
     return 0.5 * tr

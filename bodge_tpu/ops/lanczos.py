@@ -6,8 +6,8 @@ dense LAPACK factorization with ``subset_by_value=(0, ∞)``
 physics queries need, however, are the **few states nearest the Fermi
 level** — minigaps (``reference tests/test_physics.py:342-387``), edge
 states (``:300-339``), gap magnitudes — and for those this module provides
-the TPU-native answer: **Chebyshev-filtered subspace iteration** driven by
-the fused Pallas Chebyshev kernels.
+the device-side answer: **Chebyshev-filtered subspace iteration** driven by
+the block-sparse SpMM.
 
 Algorithm (Chebyshev-accelerated subspace iteration with Rayleigh–Ritz,
 the block/filtered relative of thick-restart Lanczos — see Saad, *Numerical
@@ -20,8 +20,7 @@ Methods for Large Eigenvalue Problems*, ch. 5 & 7):
     roll-off above), expanded in Chebyshev polynomials via a DCT, to a
     block of b = nev + buffer vectors.  Monotonicity guarantees the
     lowest states can never be filtered out; each application is `order`
-    fused Pallas Chebyshev steps — the identical hot kernel the KPM
-    layer uses, so the solver inherits its roofline performance.
+    Chebyshev steps — the same SpMM recursion the KPM layer uses.
 3.  Orthonormalize, then Rayleigh–Ritz **in float64 on the host** against
     the exact ELL operator (one cheap host SpMM per iteration): signed
     Ritz values θ, rotated basis, per-column residuals ‖H y − θ y‖.
@@ -52,24 +51,15 @@ import jax.numpy as jnp
 from jax import lax
 
 from .blocksparse import BLOCK, Skeleton
-from .chebyshev import (
-    _host,
-    _is_planar,
-    _operator_storage,
-    _resolve_impl,
-    _upgrade_to_pallas,
-    jackson_kernel,
-    spectral_bound,
-)
-from .spmm import spmm
+from .chebyshev import jackson_kernel, spectral_bound
+from .spmm import check_impl, spmm
 
 # Expansion-order buckets: orders are rounded up to one of these so each
 # chunk width compiles at most len(_ORDER_BUCKETS) scan programs; filter
 # coefficients are traced values, so reshaping σ between iterations is free.
 # High buckets exist because resolving dense gap-edge clusters (van Hove
 # pile-up: level spacings ∝ 1/L²) legitimately needs orders in the tens of
-# thousands — each step is one fused Pallas kernel pass, so a 32k-order
-# sweep is seconds of device time.
+# thousands.
 _ORDER_BUCKETS = (
     64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048,
     3072, 4096, 6144, 8192, 12288, 16384, 24576, 32768, 49152, 65536,
@@ -110,168 +100,21 @@ def _filter_apply_xla(data, sk: Skeleton, v0, coeffs, inv, order: int, impl: str
     return _filter_scan_body(H, v0, coeffs)
 
 
-@functools.partial(jax.jit, static_argnames=("sk", "order"))
-def _filter_apply_planar(dp, sk: Skeleton, vp, coeffs, inv, order: int):
-    from . import planar as pl_ops
-
-    H = lambda v: pl_ops.spmm_planar(dp, sk, v) * inv
-    return _filter_scan_body(H, vp, coeffs)
-
-
-@functools.partial(jax.jit, static_argnames=("sk", "order", "K"))
-def _filter_apply_packed(b_packed, v0p, coeffs, inv, sk: Skeleton, order: int, K: int):
-    """Filter application in the fused Pallas packed layout.
-
-    Each recursion step is ONE fused kernel pass (`chebyshev_step_pallas`,
-    minimum HBM traffic); the coefficient axpy runs as an XLA-fused
-    elementwise update on the packed carry."""
-    from .pallas_spmm import chebyshev_step_pallas
-
-    inv_f = jnp.asarray(inv, jnp.float32)
-    cf = jnp.asarray(coeffs, jnp.float32)
-    t0 = v0p
-    # Half-scaled first step gives t1 = H̃ t0 (the _moments_fused_body trick).
-    t1, _ = chebyshev_step_pallas(b_packed, t0, jnp.zeros_like(t0), 0.5 * inv_f, sk, K)
-    y = cf[0] * t0 + cf[1] * t1
-
-    def step(carry, c):
-        t_prev, t_cur, acc = carry
-        t_next, _ = chebyshev_step_pallas(b_packed, t_cur, t_prev, inv_f, sk, K)
-        return (t_cur, t_next, acc + c * t_next), None
-
-    (_, _, y), _ = lax.scan(step, (t0, t1, y), cf[2:])
-    return y
-
-
-@functools.partial(jax.jit, static_argnames=("sk", "gl", "order", "K"))
-def _filter_apply_gather(b, off, v0p, coeffs, inv, sk: Skeleton, gl, order: int, K: int):
-    from .pallas_gather import spmm_gather_packed
-
-    inv_f = jnp.asarray(inv, jnp.float32)
-    cf = jnp.asarray(coeffs, jnp.float32)
-    H = lambda v: spmm_gather_packed(b, off, v, sk, gl, K) * inv_f
-    return _filter_scan_body(H, v0p, cf)
-
-
 class _FilterEngine:
-    """Caches the device-resident operator across filter applications.
+    """Keeps the device-resident operator across filter applications."""
 
-    Chunks wide blocks into kernel-feasible column groups (the same policy
-    as :func:`bodge_tpu.ops.chebyshev.moments`) so one packed operator
-    serves the whole subspace iteration.
-    """
-
-    def __init__(self, data, sk: Skeleton, impl: Optional[str], operator_dtype=None):
-        auto = impl in (None, "auto")
-        impl = _resolve_impl(impl)
+    def __init__(self, data, sk: Skeleton, impl: str):
+        check_impl(impl)
         self.sk = sk
-        self.dtype = np.complex64 if _is_planar(data) else np.dtype(data.dtype)
-        if auto:
-            impl = _upgrade_to_pallas(impl, data, 8, sk)
         self.impl = impl
-        self.chunk = None
-
-        if impl == "pallas":
-            from .pallas_spmm import pack_operator, plan, supported
-
-            kc = next((k for k in (32, 16, 8, 4) if supported(sk, k)), None)
-            if kc is None:
-                self.impl = impl = "stencil" if sk.stencil else "gather"
-            else:
-                self.chunk = kc
-                self._layout = plan(sk, kc)
-                self._b_packed = pack_operator(
-                    data, sk, kc, operator_dtype=_operator_storage(operator_dtype),
-                    layout=self._layout,
-                )
-        if impl == "pallas_gather":
-            from .pallas_gather import (
-                pack_gather_offsets,
-                pack_gather_operator,
-                plan_gather,
-            )
-
-            kc = next((k for k in (32, 16, 8, 4) if plan_gather(sk, k)), None)
-            if kc is None:
-                self.impl = impl = "stencil" if sk.stencil else "gather"
-            else:
-                self.chunk = kc
-                self._gl = plan_gather(sk, kc)
-                self._b_gather = pack_gather_operator(
-                    _host(data), sk, self._gl,
-                    operator_dtype=_operator_storage(operator_dtype),
-                )
-                self._off = pack_gather_offsets(sk, self._gl)
-        if impl == "planar":
-            from . import planar as pl_ops
-
-            self._dp = data if _is_planar(data) else pl_ops.to_planar(_host(data))
-        elif impl in ("stencil", "gather"):
-            self._data = jnp.asarray(data)
+        self.dtype = np.dtype(data.dtype)
+        self._data = jnp.asarray(data)
 
     def apply(self, V: np.ndarray, coeffs: np.ndarray, inv_scale: float) -> np.ndarray:
         """Filtered block Σ_m c_m T_m(H̃) V for host ``V: [N, 4, b]``."""
         order = _bucket_order(len(coeffs))
         cpad = np.zeros(order, dtype=np.float64)
         cpad[: len(coeffs)] = coeffs
-        b = V.shape[-1]
-
-        if self.impl == "pallas":
-            from .pallas_spmm import pack_vector, unpack_vector
-
-            kc = self.chunk
-            outs = []
-            for i0 in range(0, b, kc):
-                cols = V[..., i0 : i0 + kc]
-                pad = kc - cols.shape[-1]
-                if pad:
-                    cols = np.concatenate(
-                        [cols, np.zeros(cols.shape[:-1] + (pad,), cols.dtype)], axis=-1
-                    )
-                vp = pack_vector(cols, self.sk, layout=self._layout)
-                yp = _filter_apply_packed(
-                    self._b_packed, vp, jnp.asarray(cpad, jnp.float32),
-                    jnp.float32(inv_scale), self.sk, order, kc,
-                )
-                y = np.asarray(
-                    unpack_vector(yp, self.sk, kc, self.dtype, layout=self._layout)
-                )
-                outs.append(y[..., : kc - pad] if pad else y)
-            return np.concatenate(outs, axis=-1)
-
-        if self.impl == "pallas_gather":
-            from .pallas_gather import pack_gather_vector, unpack_gather_vector
-
-            kc = self.chunk
-            outs = []
-            for i0 in range(0, b, kc):
-                cols = V[..., i0 : i0 + kc]
-                pad = kc - cols.shape[-1]
-                if pad:
-                    cols = np.concatenate(
-                        [cols, np.zeros(cols.shape[:-1] + (pad,), cols.dtype)], axis=-1
-                    )
-                vp = pack_gather_vector(cols.astype(self.dtype), self.sk, self._gl)
-                yp = _filter_apply_gather(
-                    self._b_gather, self._off, vp, jnp.asarray(cpad, jnp.float32),
-                    jnp.float32(inv_scale), self.sk, self._gl, order, kc,
-                )
-                y = np.asarray(
-                    unpack_gather_vector(yp, self.sk, self._gl, kc, self.dtype)
-                )
-                outs.append(y[..., : kc - pad] if pad else y)
-            return np.concatenate(outs, axis=-1)
-
-        if self.impl == "planar":
-            from . import planar as pl_ops
-
-            vp = pl_ops.to_planar(np.ascontiguousarray(V.astype(self.dtype)))
-            yp = _filter_apply_planar(
-                self._dp, self.sk, vp, jnp.asarray(cpad, jnp.float32),
-                jnp.float32(inv_scale), order,
-            )
-            return np.asarray(pl_ops.from_planar(yp, self.dtype))
-
         rdtype = np.zeros((), self.dtype).real.dtype
         y = _filter_apply_xla(
             self._data, self.sk, jnp.asarray(V.astype(self.dtype)),
@@ -375,7 +218,7 @@ def _signed_rayleigh_ritz(hspmm, Q: np.ndarray, W: np.ndarray):
     θ² + ‖r‖² is variationally bounded below by the true squared gap, so
     sorting by ρ² can never promote junk above a genuine low-|ε| state.
 
-    Host-flops layout (the 2-core host is the large-system bottleneck):
+    Host-flops layout (the host is the large-system bottleneck):
     the augmentation is orthonormalized by CGS(×2)+QR against Q instead
     of an SVD of [Q, W], and residual norms come from the Gram matrix
     ‖r_j‖² = (Uᴴ·HCᴴHC·U)_jj − θ_j² instead of a full residual GEMM.
@@ -424,8 +267,7 @@ def lowest_eigenstates(
     polish: int = 1,
     block: Optional[int] = None,
     max_block: Optional[int] = None,
-    impl: Optional[str] = None,
-    operator_dtype=None,
+    impl: str = "stencil",
     scale: Optional[float] = None,
     seed: int = 7,
     full_output: bool = False,
@@ -466,12 +308,7 @@ def lowest_eigenstates(
     # within the max-order filter resolution).
     b_max = max_block or min(dim // 4, max(8 * nev, 128))
 
-    if _is_planar(data):
-        raise ValueError(
-            "lowest_eigenstates expects complex ELL block data (host or "
-            "device); planar-packed operators are produced internally"
-        )
-    host_data = _host(data)
+    host_data = np.asarray(data)
 
     # Tiny systems: the subspace would be a sizable fraction of the whole
     # space — a direct dense host solve is both faster and exact.
@@ -488,7 +325,7 @@ def lowest_eigenstates(
         scale = spectral_bound(data, sk, impl=impl)
     inv_scale = 1.0 / scale
 
-    engine = _FilterEngine(data, sk, impl, operator_dtype=operator_dtype)
+    engine = _FilterEngine(data, sk, impl)
 
     rng = np.random.default_rng(seed)
     V = (

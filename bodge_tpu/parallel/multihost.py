@@ -1,23 +1,24 @@
 """Multi-host entry point: ``jax.distributed`` setup + host-spanning meshes.
 
 The reference is explicitly single-machine ("no support for e.g. MPI",
-``README.md:36-39``).  The TPU-native equivalent of an MPI layer is *no
+``README.md:36-39``).  The JAX equivalent of an MPI layer is *no
 hand-written transport at all*: one ``jax.distributed.initialize()`` call
-per host process, after which ``jax.devices()`` spans the pod slice and the
-same ``shard_map`` programs used on one chip run across hosts — XLA routes
-``ppermute`` halos over ICI within a slice and DCN between slices
+per host process, after which ``jax.devices()`` spans every GPU of the job
+and the same ``shard_map`` programs used on one host run across hosts —
+XLA hands the ``ppermute`` halos and ``psum`` reductions to NCCL, over
+NVLink between the GPUs of a host and over the network between hosts
 (SURVEY §2.2, "collectives backend").
 
-Typical multi-host driver (one process per host, e.g. under gang scheduling):
+Typical multi-host driver (one process per host):
 
     from bodge_tpu.parallel import initialize_multihost, make_row_mesh
-    initialize_multihost()                    # env-driven on TPU pods
+    initialize_multihost("host0:1234", num_processes=2, process_id=rank)
     mesh = make_row_mesh()                    # all global devices
     ...                                       # identical single-host code
 
 Nothing here imports at package-import time on single-host setups; calling
 :func:`initialize_multihost` on one host is a no-op by default so driver
-scripts work unchanged from a laptop to a pod.
+scripts work unchanged from one GPU to many hosts.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ def initialize_multihost(
 ) -> bool:
     """Initialize ``jax.distributed`` for a multi-host run (idempotent).
 
-    On TPU pods all three arguments are discovered from the runtime
-    environment and may be omitted.  Returns ``True`` if a multi-process
+    Without arguments, a coordinator address in the environment
+    (``JAX_COORDINATOR_ADDRESS``) lets ``jax.distributed`` read the rest
+    from there.  Returns ``True`` if a multi-process
     runtime was initialized, ``False`` for the single-process no-op (no
     arguments given and no multi-host environment detected) — so scripts
     can call this unconditionally.
@@ -62,25 +64,12 @@ def initialize_multihost(
 
 
 def _env_looks_multihost() -> bool:
-    """True when the process environment advertises a MULTI-host runtime.
-
-    A coordinator address is unambiguous.  ``TPU_WORKER_HOSTNAMES`` alone is
-    not: single-host TPU VMs set it to one hostname — it only signals
-    multi-host when it lists several workers.
-    """
+    """True when the process environment names a coordinator."""
     import os
 
-    if any(
-        os.environ.get(k)
-        for k in (
-            "JAX_COORDINATOR_ADDRESS",
-            "COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-        )
-    ):
-        return True
-    workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    return len([w for w in workers.split(",") if w.strip()]) > 1
+    return any(
+        os.environ.get(k) for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
+    )
 
 
 def is_multihost() -> bool:

@@ -1,20 +1,22 @@
 """Row-partitioned block-sparse operators over a JAX device mesh.
 
 [NEW SCOPE] — the reference is strictly single-process ("no support for
-e.g. MPI", reference README), so this layer is designed TPU-first rather
-than ported: the lattice's leading (x) axis is block-partitioned over a 1-D
-device mesh, giving each device a contiguous slab of x-planes.  Because the
-flat site index is x-major, slabs are contiguous row blocks of the ELL
-data — exactly the layout :mod:`bodge_tpu.ops.spmm` already uses.
+e.g. MPI", reference README), so this layer is designed for a JAX mesh
+rather than ported: the lattice's leading (x) axis is block-partitioned
+over a 1-D device mesh, giving each device a contiguous slab of x-planes.
+Because the flat site index is x-major, slabs are contiguous row blocks of
+the ELL data — exactly the layout :mod:`bodge_tpu.ops.spmm` already uses.
 
 The stencil SpMM then needs one x-plane of the operand from each neighbor
 device per application.  We exchange those halos with ``jax.lax.ppermute``
-over the mesh ring (ICI on a pod slice; hierarchical over DCN for
-multi-host) inside a ``shard_map``; the ring wrap-around delivers device
-P−1's last plane to device 0, which is precisely the periodic-boundary
-partner plane — so periodic and open boundaries work unmodified (open
-boundaries have zero wrap blocks, annihilating the halo contribution), the
-same trick that makes the single-device circular roll exact.
+over the mesh ring inside a ``shard_map``; XLA hands the exchange to NCCL,
+which carries it over NVLink between the GPUs of one host (every card
+reaches every other at the same rate, so the ring is shaped by the
+algorithm alone).  The ring wrap-around delivers device P−1's last plane to
+device 0, which is precisely the periodic-boundary partner plane — so
+periodic and open boundaries work unmodified (open boundaries have zero
+wrap blocks, annihilating the halo contribution), the same trick that
+makes the single-device circular roll exact.
 
 Reductions (Chebyshev inner products, trace estimates, free-energy sums)
 are ``psum`` over the same axis.  Everything composes under one jit so XLA
@@ -32,10 +34,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import AxisType, Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops.blocksparse import BLOCK, Skeleton
-from ..ops.chebyshev import _KERNELS, chebyshev_coefficients
+from ..ops.chebyshev import (
+    _KERNELS,
+    _doubled_moment_scan,
+    chebyshev_coefficients,
+    rademacher_probes,
+)
+from ..ops.spmm import block_einsum
 
 AXIS = "rows"
 PROBE_AXIS = "probes"
@@ -49,6 +57,10 @@ def make_row_mesh(
     With ``probe_shards > 1`` a second mesh axis additionally partitions
     the probe-vector batch (the data-parallel analog): mesh shape becomes
     ``(n/probe_shards, probe_shards)`` with axes ``(rows, probes)``.
+
+    The axes are ``Auto``: arrays that enter a jitted program replicated
+    (a gap field Δ) are reconciled with the row-sharded operator by XLA's
+    sharding propagation, also inside ``jax.jit(jax.grad(...))``.
     """
     if devices is None:
         devices = jax.devices()
@@ -59,9 +71,10 @@ def make_row_mesh(
         if n % probe_shards != 0:
             raise ValueError(f"{n} devices do not split into {probe_shards} probe shards")
         return jax.make_mesh(
-            (n // probe_shards, probe_shards), (AXIS, PROBE_AXIS), devices=devices
+            (n // probe_shards, probe_shards), (AXIS, PROBE_AXIS), devices=devices,
+            axis_types=(AxisType.Auto, AxisType.Auto),
         )
-    return jax.make_mesh((n,), (AXIS,), devices=devices)
+    return jax.make_mesh((n,), (AXIS,), devices=devices, axis_types=(AxisType.Auto,))
 
 
 @dataclass(frozen=True, eq=False)
@@ -107,22 +120,11 @@ class RowSharding:
         # probe batch K on the second mesh axis.
         return P(AXIS, None, PROBE_AXIS) if self.has_probe_axis else P(AXIS)
 
-    @staticmethod
-    def planar_spec(spec: P) -> P:
-        """Partition spec for the planar form: a leading replicated re/im axis."""
-        return P(None, *spec)
-
     def shard_data(self, data):
-        spec = self.data_spec
-        if _is_planar_operator(data):
-            spec = self.planar_spec(spec)
-        return jax.device_put(data, NamedSharding(self.mesh, spec))
+        return jax.device_put(data, NamedSharding(self.mesh, self.data_spec))
 
     def shard_vector(self, v):
-        spec = self.vec_spec
-        if v.ndim == 4 and v.shape[0] == 2 and not np.iscomplexobj(v):
-            spec = self.planar_spec(spec)
-        return jax.device_put(v, NamedSharding(self.mesh, spec))
+        return jax.device_put(v, NamedSharding(self.mesh, self.vec_spec))
 
 
 def _local_stencil_spmm(sk: Skeleton, n_shards: int, data_l, v_l):
@@ -143,7 +145,7 @@ def _local_stencil_spmm(sk: Skeleton, n_shards: int, data_l, v_l):
     halo_lo = lax.ppermute(v3[-1], AXIS, perm=fwd)
     halo_hi = lax.ppermute(v3[0], AXIS, perm=bwd)
 
-    y = jnp.einsum("xyzab,xyzbk->xyzak", d3[..., 0, :, :], v3)
+    y = block_einsum("xyzab,xyzbk->xyzak", d3[..., 0, :, :], v3)
     for s, (axis, d) in enumerate(sk.slots):
         if axis < 0:
             continue
@@ -154,89 +156,23 @@ def _local_stencil_spmm(sk: Skeleton, n_shards: int, data_l, v_l):
                 shifted = jnp.concatenate([halo_lo[None], v3[:-1]], axis=0)
         else:
             shifted = jnp.roll(v3, shift=-d, axis=axis)
-        y = y + jnp.einsum("xyzab,xyzbk->xyzak", d3[..., s, :, :], shifted)
+        y = y + block_einsum("xyzab,xyzbk->xyzak", d3[..., s, :, :], shifted)
 
     return y.reshape(-1, BLOCK, K)
 
 
-def _local_stencil_spmm_planar(sk: Skeleton, n_shards: int, dp_l, vp_l):
-    """Planar (split-complex f32) halo-exchange SpMM on a local slab.
-
-    ``dp_l: [2, N/P, S, 4, 4]``, ``vp_l: [2, N/P, 4, K]``.  The planar
-    representation is the one the TPU backend actually supports (complex
-    collective carries are unimplemented there); halos are the same
-    x-planes, just carried as re/im pairs.
-    """
-    Lx, Ly, Lz = sk.shape
-    Lxl = Lx // n_shards
-    K = vp_l.shape[-1]
-    v3 = vp_l.reshape(2, Lxl, Ly, Lz, BLOCK, K)
-    d3 = dp_l.reshape(2, Lxl, Ly, Lz, sk.n_slots, BLOCK, BLOCK)
-
-    fwd = [(i, (i + 1) % n_shards) for i in range(n_shards)]
-    bwd = [(i, (i - 1) % n_shards) for i in range(n_shards)]
-    halo_lo = lax.ppermute(v3[:, -1], AXIS, perm=fwd)
-    halo_hi = lax.ppermute(v3[:, 0], AXIS, perm=bwd)
-
-    def acc(y, b, v):
-        br, bi, vr, vi = b[0], b[1], v[0], v[1]
-        yr = y[0] + jnp.einsum("xyzab,xyzbk->xyzak", br, vr) - jnp.einsum(
-            "xyzab,xyzbk->xyzak", bi, vi
-        )
-        yi = y[1] + jnp.einsum("xyzab,xyzbk->xyzak", br, vi) + jnp.einsum(
-            "xyzab,xyzbk->xyzak", bi, vr
-        )
-        return (yr, yi)
-
-    zero = jnp.zeros(v3.shape[1:], dtype=vp_l.dtype)
-    y = acc((zero, zero), d3[:, ..., 0, :, :], v3)
-    for s, (axis, d) in enumerate(sk.slots):
-        if axis < 0:
-            continue
-        if axis == 0:
-            if d == +1:
-                shifted = jnp.concatenate([v3[:, 1:], halo_hi[:, None]], axis=1)
-            else:
-                shifted = jnp.concatenate([halo_lo[:, None], v3[:, :-1]], axis=1)
-        else:
-            shifted = jnp.roll(v3, shift=-d, axis=1 + axis)
-        y = acc(y, d3[:, ..., s, :, :], shifted)
-
-    return jnp.stack(y).reshape(2, -1, BLOCK, K)
-
-
-def _is_planar_operator(data) -> bool:
-    import numpy as _np
-
-    return data.ndim == 5 and data.shape[0] == 2 and not _np.iscomplexobj(data)
-
-
 def spmm_sharded(rs: RowSharding, data, v):
-    """``H @ v`` with H row-partitioned over the mesh (halo-exchange SpMM).
-
-    Accepts the complex representation or the planar one (``[2, ...]``
-    f32 — required on TPU backends); the output matches the input form.
-    """
-    sk, n = rs.sk, rs.n_shards
-    planar = _is_planar_operator(data)
-    local = (
-        partial(_local_stencil_spmm_planar, sk, n)
-        if planar
-        else partial(_local_stencil_spmm, sk, n)
+    """``H @ v`` with H row-partitioned over the mesh (halo-exchange SpMM)."""
+    local = partial(_local_stencil_spmm, rs.sk, rs.n_shards)
+    fn = jax.shard_map(
+        local, mesh=rs.mesh, in_specs=(rs.data_spec, rs.vec_spec), out_specs=rs.vec_spec
     )
-    in_specs = (rs.planar_spec(rs.data_spec), rs.planar_spec(rs.vec_spec)) if planar else (
-        rs.data_spec, rs.vec_spec
-    )
-    out_spec = rs.planar_spec(rs.vec_spec) if planar else rs.vec_spec
-    fn = jax.shard_map(local, mesh=rs.mesh, in_specs=in_specs, out_specs=out_spec)
     return fn(data, v)
 
 
 @partial(jax.jit, static_argnames=("rs", "order"))
 def _moments_sharded_jit(rs: RowSharding, data, v0, inv_scale, order: int):
     sk, n = rs.sk, rs.n_shards
-
-    from ..ops.chebyshev import _doubled_moment_scan
 
     def local(data_l, v0_l, inv_l):
         def H(v):
@@ -259,42 +195,8 @@ def _moments_sharded_jit(rs: RowSharding, data, v0, inv_scale, order: int):
     return fn(data, v0, inv_scale)
 
 
-@partial(jax.jit, static_argnames=("rs", "order"))
-def _moments_sharded_planar_jit(rs: RowSharding, dp, vp0, inv_scale, order: int):
-    sk, n = rs.sk, rs.n_shards
-
-    from ..ops.chebyshev import _doubled_moment_scan
-
-    def local(dp_l, vp_l, inv_l):
-        def H(v):
-            return _local_stencil_spmm_planar(sk, n, dp_l, v) * inv_l
-
-        def inner(a, b):
-            return lax.psum(
-                jnp.sum(a[0] * b[0] + a[1] * b[1], axis=(0, 1)), AXIS
-            )
-
-        return _doubled_moment_scan(H, inner, vp_l, order)
-
-    out_spec = P(None, PROBE_AXIS) if rs.has_probe_axis else P()
-    fn = jax.shard_map(
-        local,
-        mesh=rs.mesh,
-        in_specs=(rs.planar_spec(rs.data_spec), rs.planar_spec(rs.vec_spec), P()),
-        out_specs=out_spec,
-    )
-    return fn(dp, vp0, inv_scale)
-
-
 def moments_sharded(rs: RowSharding, data, v0, order: int, scale: float):
-    """Chebyshev moments with row-partitioned SpMM and psum inner products.
-
-    Planar inputs (``[2, ...]`` f32) use the planar local kernel — the form
-    required on TPU pods.
-    """
-    if _is_planar_operator(data):
-        inv = jnp.asarray(1.0 / scale, dtype=jnp.float32)
-        return _moments_sharded_planar_jit(rs, data, v0, inv, order)
+    """Chebyshev moments with row-partitioned SpMM and psum inner products."""
     rdtype = jnp.real(jnp.zeros((), data.dtype)).dtype
     inv = jnp.asarray(1.0 / scale, dtype=rdtype)
     return _moments_sharded_jit(rs, data, v0, inv, order)
@@ -304,8 +206,6 @@ def moments_sharded(rs: RowSharding, data, v0, order: int, scale: float):
 def _trace_sharded_jit(rs: RowSharding, data, probes, coeffs, inv_scale, order: int):
     sk, n = rs.sk, rs.n_shards
 
-    from ..ops.chebyshev import _doubled_moment_scan
-
     def local(data_l, z_l, coeffs_l, inv_l):
         def H(v):
             return _local_stencil_spmm(sk, n, data_l, v) * inv_l
@@ -314,7 +214,7 @@ def _trace_sharded_jit(rs: RowSharding, data, probes, coeffs, inv_scale, order: 
             return lax.psum(jnp.real(jnp.sum(jnp.conj(a) * b)), rs.reduce_axes)
 
         mu = _doubled_moment_scan(H, inner, z_l, order)
-        return jnp.dot(coeffs_l[: mu.shape[0]], mu)
+        return jnp.dot(coeffs_l[: mu.shape[0]], mu, precision=lax.Precision.HIGHEST)
 
     fn = jax.shard_map(
         local,
@@ -323,31 +223,6 @@ def _trace_sharded_jit(rs: RowSharding, data, probes, coeffs, inv_scale, order: 
         out_specs=P(),
     )
     return fn(data, probes, coeffs, inv_scale)
-
-
-@partial(jax.jit, static_argnames=("rs", "order"))
-def _trace_sharded_planar_jit(rs: RowSharding, dp, probes, coeffs, inv_scale, order: int):
-    sk, n = rs.sk, rs.n_shards
-
-    from ..ops.chebyshev import _doubled_moment_scan
-
-    def local(dp_l, z_l, coeffs_l, inv_l):
-        def H(v):
-            return _local_stencil_spmm_planar(sk, n, dp_l, v) * inv_l
-
-        def inner(a, b):
-            return lax.psum(jnp.sum(a[0] * b[0] + a[1] * b[1]), rs.reduce_axes)
-
-        mu = _doubled_moment_scan(H, inner, z_l, order)
-        return jnp.dot(coeffs_l[: mu.shape[0]], mu)
-
-    fn = jax.shard_map(
-        local,
-        mesh=rs.mesh,
-        in_specs=(rs.planar_spec(rs.data_spec), rs.planar_spec(rs.vec_spec), P(), P()),
-        out_specs=P(),
-    )
-    return fn(dp, probes, coeffs, inv_scale)
 
 
 def free_energy_kpm_sharded(
@@ -373,19 +248,6 @@ def free_energy_kpm_sharded(
     coeffs = jnp.asarray(coeffs * _KERNELS[kernel](order))
 
     N = rs.sk.n_sites
-    from ..ops.chebyshev import rademacher_probes
-
-    if _is_planar_operator(data):
-        from ..ops.planar import to_planar
-
-        z = rademacher_probes(N, samples, key, np.complex64)
-        zp = rs.shard_vector(np.asarray(to_planar(z)))
-        inv = jnp.asarray(1.0 / scale, dtype=jnp.float32)
-        est = _trace_sharded_planar_jit(
-            rs, data, zp, jnp.asarray(np.asarray(coeffs, np.float32)), inv, order
-        )
-        return 0.5 * float(est) / samples
-
     rdtype = jnp.real(jnp.zeros((), data.dtype)).dtype
     inv = jnp.asarray(1.0 / scale, dtype=rdtype)
     z = jnp.asarray(rademacher_probes(N, samples, key, np.dtype(data.dtype)))

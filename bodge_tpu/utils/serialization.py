@@ -1,7 +1,7 @@
 """Checkpoint / resume for assembled Hamiltonians.
 
 [NEW SCOPE] — the reference has no serialization ("Hamiltonians are rebuilt
-from scripts each run", SURVEY §5); at TPU scale an assembled operator is
+from scripts each run", SURVEY §5); at device scale an assembled operator is
 worth persisting: million-site assemblies take seconds and self-consistency
 loops produce converged gap fields one wants to restart from.
 

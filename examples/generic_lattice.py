@@ -1,16 +1,14 @@
 #!/usr/bin/env python
-"""Generic (user-defined) lattices on the TPU fast path.
+"""Generic (user-defined) lattices on the device path.
 
 Any :class:`bodge_tpu.Lattice` subclass — not just ``CubicLattice`` —
-gets a hand-scheduled kernel: the RCM-banded gather kernel
-(`bodge_tpu/ops/pallas_gather.py`) relabels sites by reverse
-Cuthill–McKee and turns neighbor access into a one-hot MXU matmul,
-measured ~20–30× faster than the XLA fallback it replaces.  Auto-selected
-on TPU; force it anywhere with ``impl="pallas_gather"``.
+runs the same observables: its skeleton has no stencil structure, so
+every SpMM takes the gather form ``y[i] = Σ_s data[i,s] @ v[cols[i,s]]``
+(``impl="gather"``), which the GPU runs natively.
 
 Here: a Möbius-style ring with a twist defect — a graph no cubic stencil
 describes — assembled through the reference-style ``with`` DSL and probed
-via KPM LDOS through the gather kernel.
+via KPM LDOS through the gather SpMM.
 """
 import numpy as np
 
@@ -67,16 +65,14 @@ def main():
     assert not sk.stencil  # generic graph → gather path
 
     energies = np.linspace(-1.5, 1.5, 61)
-    # On TPU this auto-upgrades to the gather kernel; impl= forces it
-    # everywhere (interpret mode on CPU).
     ρ = kpm.ldos_kpm(system.host_data(), sk, n // 2, energies,
-                     order=1024, impl="pallas_gather")
+                     order=1024, impl="gather")
     inside = ρ[np.abs(energies) < 0.2].mean()
     outside = ρ[np.abs(energies) > 0.5].mean()
     print(f"in-gap LDOS : {inside:.4f}")
     print(f"band LDOS   : {outside:.4f}")
     print(f"gap contrast: {outside / max(inside, 1e-6):.0f}x  "
-          f"(s-wave gap resolved through the gather kernel)")
+          f"(s-wave gap resolved through the gather SpMM)")
 
 
 if __name__ == "__main__":

@@ -36,15 +36,13 @@ def main():
         mid = np.real(Δ[len(Δ) // 2])
         print(f"{V:4.1f}   {mid:9.4f}   {F:10.3f}")
 
-    # At scale, the same loop rides the hand-scheduled Pallas kernel —
-    # forward AND backward (the fused Chebyshev step carries a custom
-    # VJP), e.g.:
+    # At scale, the same loop runs through the KPM trace — forward and
+    # backward on the device, optionally row-sharded over several GPUs:
     #
-    #     solve_gap(system2d, V=2.0, method="kpm", impl="pallas",
-    #               order=256, samples=32, steps=150)
+    #     solve_gap(system2d, V=2.0, method="kpm", order=256, samples=32,
+    #               steps=150, mesh=make_row_mesh())
     #
-    # which evaluates the stochastic KPM free-energy trace and its
-    # gradient entirely on the fast path (docs/tutorial.md §6).
+    # (docs/tutorial.md §6).
 
     # Spatial profile at strong coupling: uniform in the bulk, with the
     # well-known boundary enhancement + Friedel oscillation at the open

@@ -184,68 +184,3 @@ def test_ldos_map_batched_matches_single():
     dense_map = system.ldos_map(sites, energies)
     for r, s in zip(dense_map, sites):
         assert np.allclose(r, system.ldos(s, energies))
-
-
-def test_planar_downgrade_warns_with_reason(monkeypatch):
-    """When auto impl selection declines the Pallas kernel, the silent
-    ~100× planar cliff must come with a RuntimeWarning naming the cause
-    (round-3 verdict item 6).  BODGE_PALLAS_UPGRADE=1 exercises the TPU
-    dispatch decision on the CPU backend."""
-    import warnings
-
-    from tests.test_generic_lattice import build_ring
-
-    monkeypatch.setenv("BODGE_PALLAS_UPGRADE", "1")
-    lattice, system = build_ring(12)
-    sk = system.skeleton
-    assert not sk.stencil
-
-    # Generic skeletons now upgrade to the RCM-banded gather kernel; the
-    # warning fires only when that kernel ALSO declines (huge RCM band).
-    from bodge_tpu.ops import pallas_gather as pg
-
-    monkeypatch.setattr(pg, "supported_gather", lambda *a, **k: False)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        out = kpm._upgrade_to_pallas("planar", system.data, 4, sk)
-    assert out == "planar"
-    msgs = [str(w.message) for w in caught if w.category is RuntimeWarning]
-    assert any("planar stencil" in m and "not a cubic-lattice stencil" in m
-               for m in msgs)
-
-    # A covered skeleton upgrades silently.
-    lattice2, system2 = swave_system((8, 8, 1))
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        out = kpm._upgrade_to_pallas("planar", system2.data, 4, system2.skeleton)
-    assert out == "pallas"
-    assert not [w for w in caught if w.category is RuntimeWarning]
-
-
-def test_decline_reason_distinguishes_causes():
-    from bodge_tpu.ops import pallas_spmm as pk
-    from tests.test_generic_lattice import build_ring
-
-    _, ring = build_ring(12)
-    assert "not a cubic-lattice stencil" in pk.decline_reason(ring.skeleton, 4)
-
-    _, cubic = swave_system((8, 8, 1))
-    assert pk.decline_reason(cubic.skeleton, 4) is None
-    # A probe count far past the plane kernel's VMEM cap names K.
-    reason = pk.decline_reason(cubic.skeleton, 10**6)
-    assert reason is not None and "K=1000000" in reason
-
-
-def test_wide_probe_batches_still_upgrade(monkeypatch):
-    """LDOS-map-sized probe batches (K = 4·n_sites, far past the plane
-    VMEM cap) must still auto-upgrade to the Pallas kernel — moments()
-    chunks the columns; falling to the planar cliff for exactly the
-    workload the chunk path was built for was a review finding."""
-    monkeypatch.setenv("BODGE_PALLAS_UPGRADE", "1")
-    lattice, system = swave_system((24, 24, 1))
-    sk = system.skeleton
-    K = 4 * lattice.size  # 2304 probe columns
-    from bodge_tpu.ops.pallas_spmm import supported
-
-    assert not supported(sk, K)  # past the VMEM cap...
-    assert kpm._upgrade_to_pallas("planar", system.data, K, sk) == "pallas"

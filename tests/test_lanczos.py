@@ -133,14 +133,14 @@ def test_tiny_system_dense_fallback():
     np.testing.assert_allclose(E, np.sort(E_ref[idx]), atol=1e-10)
 
 
-def test_explicit_planar_impl():
-    """The engine honors an explicit impl="planar" (split-complex XLA)."""
+def test_explicit_gather_impl():
+    """The filter engine runs the gather SpMM when asked and reports it."""
     sys = _swave_system((12, 12, 1), delta=0.3, pot=0.09)
     want, _ = _lowest_ref(sys, 6)
     E, _, info = lz.lowest_eigenstates(
-        sys.host_data(), sys.skeleton, 6, impl="planar", full_output=True, seed=4
+        sys.host_data(), sys.skeleton, 6, impl="gather", full_output=True, seed=4
     )
-    assert info["impl"] == "planar"
+    assert info["impl"] == "gather"
     # nev=6 splits a 4-fold |E| level here: which signs are taken from the
     # tied level is arbitrary, so compare the sign-blind |E| ladder.
     np.testing.assert_allclose(np.sort(np.abs(E)), np.sort(np.abs(want)), atol=1e-6, rtol=0)

@@ -1,5 +1,5 @@
 """Lattice-layer tests (parity: reference tests/test_lattice.py) plus
-coverage of the TPU-native vectorized coordinate/bond arrays."""
+coverage of the vectorized coordinate/bond arrays."""
 
 import numpy as np
 import pytest
@@ -82,7 +82,7 @@ def test_iter_contract():
     assert all(i == j for i, j in pairs[:n_sites])
 
 
-# -- Vectorized arrays (TPU-native extension) ------------------------------
+# -- Vectorized arrays (extension of the reference) -------------------------
 
 
 def test_site_coords_matches_generator():

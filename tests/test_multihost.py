@@ -4,14 +4,11 @@ import jax
 
 from bodge_tpu.parallel import initialize_multihost, is_multihost, local_device_count
 
+_ENV_KEYS = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
+
 
 def test_initialize_is_noop_single_host(monkeypatch):
-    for k in (
-        "JAX_COORDINATOR_ADDRESS",
-        "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS",
-        "TPU_WORKER_HOSTNAMES",
-    ):
+    for k in _ENV_KEYS:
         monkeypatch.delenv(k, raising=False)
     assert initialize_multihost() is False  # no env, no args → no-op
     assert is_multihost() is False
@@ -21,20 +18,12 @@ def test_initialize_is_noop_single_host(monkeypatch):
 def test_env_detection(monkeypatch):
     from bodge_tpu.parallel import multihost
 
-    for k in (
-        "JAX_COORDINATOR_ADDRESS",
-        "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS",
-        "TPU_WORKER_HOSTNAMES",
-    ):
+    for k in _ENV_KEYS:
         monkeypatch.delenv(k, raising=False)
     assert multihost._env_looks_multihost() is False
-    # A single worker hostname (every single-host TPU VM sets this) must NOT
-    # read as multi-host; a multi-worker list or a coordinator address must.
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-    assert multihost._env_looks_multihost() is False
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-0,host-1,host-2,host-3")
-    assert multihost._env_looks_multihost() is True
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
+    # A coordinator address, under either name, reads as multi-host.
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
+    assert multihost._env_looks_multihost() is True
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
     assert multihost._env_looks_multihost() is True

@@ -1,7 +1,7 @@
 """Physics laws driven end-to-end through the Chebyshev/KPM stack.
 
 The reference validates physics only through its dense/sparse-LU solvers
-(reference tests/test_physics.py); the TPU-scalable path of this build —
+(reference tests/test_physics.py); the scalable device path of this build —
 block-sparse SpMM → KPM moments → Jackson-kernel reconstruction — was
 previously validated only by unit-level convergence tests.  These tests
 re-assert the same physical laws with ``method="kpm"`` so a regression

@@ -52,7 +52,7 @@ def ref():
 
 def _build_pair(ref, shape=(6, 6, 1), μ=0.5, t=1.0, Δ0=0.3, m=0.2):
     """Identical s-wave + exchange-field systems in both libraries."""
-    import bodge_tpu as tpu
+    import bodge_tpu as bt
 
     rl = ref.CubicLattice(shape)
     rs = ref.Hamiltonian(rl)
@@ -63,14 +63,14 @@ def _build_pair(ref, shape=(6, 6, 1), μ=0.5, t=1.0, Δ0=0.3, m=0.2):
         for i, j in rl.bonds():
             H[i, j] = -t * ref.sigma0
 
-    tl = tpu.CubicLattice(shape)
-    ts = tpu.Hamiltonian(tl)
+    tl = bt.CubicLattice(shape)
+    ts = bt.Hamiltonian(tl)
     with ts as (H, Δ):
         for i in tl.sites():
-            H[i, i] = -μ * tpu.sigma0 + m * tpu.sigma3
-            Δ[i, i] = Δ0 * tpu.jsigma2
+            H[i, i] = -μ * bt.sigma0 + m * bt.sigma3
+            Δ[i, i] = Δ0 * bt.jsigma2
         for i, j in tl.bonds():
-            H[i, j] = -t * tpu.sigma0
+            H[i, j] = -t * bt.sigma0
 
     return rs, ts
 
@@ -93,12 +93,12 @@ def test_matrix_parity_sparse_formats(ref):
 
 
 def test_matrix_parity_pwave_dwave_ssd(ref):
-    import bodge_tpu as tpu
+    import bodge_tpu as bt
 
     shape = (6, 5, 1)
-    for make_ref, make_tpu in [
-        (lambda: ref.pwave("e_z * (p_x + jp_y)"), lambda: tpu.pwave("e_z * (p_x + jp_y)")),
-        (lambda: ref.dwave(), lambda: tpu.dwave()),
+    for make_ref, make_bt in [
+        (lambda: ref.pwave("e_z * (p_x + jp_y)"), lambda: bt.pwave("e_z * (p_x + jp_y)")),
+        (lambda: ref.dwave(), lambda: bt.dwave()),
     ]:
         rl = ref.CubicLattice(shape)
         rs = ref.Hamiltonian(rl)
@@ -110,15 +110,15 @@ def test_matrix_parity_pwave_dwave_ssd(ref):
                 H[i, j] = -1.0 * ref.sigma0
                 Δ[i, j] = 0.15 * σ_ref(i, j)
 
-        tl = tpu.CubicLattice(shape)
-        ts = tpu.Hamiltonian(tl)
-        σ_tpu = make_tpu()
+        tl = bt.CubicLattice(shape)
+        ts = bt.Hamiltonian(tl)
+        σ_bt = make_bt()
         with ts as (H, Δ):
             for i in tl.sites():
-                H[i, i] = -0.5 * tpu.sigma0
+                H[i, i] = -0.5 * bt.sigma0
             for i, j in tl.bonds():
-                H[i, j] = -1.0 * tpu.sigma0
-                Δ[i, j] = 0.15 * σ_tpu(i, j)
+                H[i, j] = -1.0 * bt.sigma0
+                Δ[i, j] = 0.15 * σ_bt(i, j)
 
         np.testing.assert_allclose(
             ts.matrix(format="dense"), rs.matrix(format="dense"), atol=1e-12
@@ -127,9 +127,9 @@ def test_matrix_parity_pwave_dwave_ssd(ref):
     # ssd deformation profile agrees pointwise on sites and bonds.
     rl = ref.CubicLattice(shape)
     rs = ref.Hamiltonian(rl)
-    tl = tpu.CubicLattice(shape)
-    ts = tpu.Hamiltonian(tl)
-    φr, φt = ref.ssd(rs), tpu.ssd(ts)
+    tl = bt.CubicLattice(shape)
+    ts = bt.Hamiltonian(tl)
+    φr, φt = ref.ssd(rs), bt.ssd(ts)
     for i, j in list(rl) :
         assert abs(φr(i, j) - φt(i, j)) < 1e-12
 
@@ -172,19 +172,19 @@ def test_index_lookup_parity(ref):
     kr = rs.index(i, j)
     kt = ts.index(i, j)
     block_ref = Hr.data[rs.index(i, j)] if kr is not None else None
-    block_tpu = np.asarray(ts.data).reshape(-1, 4, 4)[kt]
-    np.testing.assert_allclose(block_tpu, block_ref, atol=1e-12)
+    block_bt = np.asarray(ts.data).reshape(-1, 4, 4)[kt]
+    np.testing.assert_allclose(block_bt, block_ref, atol=1e-12)
 
 
 def test_update_in_place_parity(ref):
     """Re-entering the with-block updates terms without clearing others."""
     rs, ts = _build_pair(ref)
-    import bodge_tpu as tpu
+    import bodge_tpu as bt
 
     with rs as (H, Δ):
         H[(0, 0, 0), (0, 0, 0)] = +0.7 * ref.sigma3
     with ts as (H, Δ):
-        H[(0, 0, 0), (0, 0, 0)] = +0.7 * tpu.sigma3
+        H[(0, 0, 0), (0, 0, 0)] = +0.7 * bt.sigma3
 
     np.testing.assert_allclose(
         ts.matrix(format="dense"), rs.matrix(format="dense"), atol=1e-12

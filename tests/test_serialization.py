@@ -89,11 +89,11 @@ def test_roundtrip_generic_skeleton(tmp_path):
     assert loaded.lattice[3] == 3
 
 
-def test_frozen_lattice_kpm_via_gather_kernel(tmp_path, monkeypatch):
-    """A checkpoint-restored generic system runs its KPM observables
-    through the gather kernel when the TPU dispatch applies (forced here
-    via BODGE_PALLAS_UPGRADE=1) — the FrozenLattice path that previously
-    fell onto the ~100× planar cliff (round-3 verdict item 6)."""
+def test_frozen_lattice_kpm_matches_exact(tmp_path):
+    """A checkpoint-restored generic system runs its KPM observables through
+    the gather SpMM; its Chebyshev moments equal a float64 recursion on the
+    exported matrix."""
+    from bodge_tpu.ops import chebyshev as kpm
     from tests.test_generic_lattice import build_ring
 
     lattice, system = build_ring(24)
@@ -103,17 +103,20 @@ def test_frozen_lattice_kpm_via_gather_kernel(tmp_path, monkeypatch):
     assert not loaded.skeleton.stencil
 
     energies = np.linspace(-2.0, 2.0, 9)
-    # Simulate the TPU dispatch on CPU: BODGE_PLANAR=1 makes the planar
-    # path the default, BODGE_PALLAS_UPGRADE=1 lets it upgrade — which
-    # for this generic skeleton must land on the gather kernel.
-    from bodge_tpu.ops import chebyshev as kpm
+    ρ_kpm = loaded.ldos(5, energies, method="kpm", impl="gather", eta=0.3)
+    ρ_default = loaded.ldos(5, energies, method="kpm", eta=0.3)
+    np.testing.assert_allclose(ρ_kpm, ρ_default, atol=1e-12)
+    assert np.all(ρ_kpm > 0)
 
-    monkeypatch.setenv("BODGE_PALLAS_UPGRADE", "1")
-    assert kpm._upgrade_to_pallas(
-        "planar", loaded.host_data(), 4, loaded.skeleton
-    ) == "pallas_gather"
-    ρ_gather = loaded.ldos(5, energies, method="kpm", order=128,
-                           impl="pallas_gather")
-    monkeypatch.delenv("BODGE_PALLAS_UPGRADE")
-    ρ_ref = loaded.ldos(5, energies, method="kpm", order=128)
-    np.testing.assert_allclose(ρ_gather, ρ_ref, atol=2e-4, rtol=2e-4)
+    scale = kpm.spectral_bound(loaded.data, loaded.skeleton)
+    v0 = np.zeros((lattice.size, 4, 4), loaded.dtype)
+    v0[5, np.arange(4), np.arange(4)] = 1.0
+    mu = np.asarray(kpm.moments(loaded.data, loaded.skeleton, v0, 40, scale, impl="gather"))
+    H = loaded.matrix("dense") / scale
+    V0 = v0.reshape(4 * lattice.size, 4)
+    t_prev, t_cur = V0, H @ V0
+    want = [np.real(np.sum(V0.conj() * t_prev, axis=0)), np.real(np.sum(V0.conj() * t_cur, axis=0))]
+    for _ in range(38):
+        t_prev, t_cur = t_cur, 2 * H @ t_cur - t_prev
+        want.append(np.real(np.sum(V0.conj() * t_cur, axis=0)))
+    np.testing.assert_allclose(mu, np.array(want), atol=1e-10)

@@ -14,7 +14,7 @@ Two deviations from verbatim execution, both mechanical and listed here:
    identical — only problem sizes change.  Sizes divisible by 8 are used
    where sharding blocks need the virtual mesh.
 2. **Demo-variable prelude**: a few snippets reference illustrative
-   variables (``site``, ``energies``, ``v``, ``delta``, ``v_sh`` …) whose
+   variables (``site``, ``energies``, ``v``, ``delta`` …) whose
    construction the prose describes; `_ensure_demo_names` defines them
    the way the surrounding text specifies.
 
@@ -50,9 +50,9 @@ SUBSTITUTIONS = [
     # solve_gap: cap the gradient-descent steps for CI.
     ("temperature=0.0, uniform=True,", "temperature=0.0, uniform=True, steps=25,"),
     ("steps=150,", "steps=6,"),
-    # The fused-kernel objective runs in interpret mode on CPU — keep the
-    # sweep short (the kernels themselves are covered by tests/test_pallas*).
-    ('method="kpm", impl="pallas")', 'method="kpm", impl="pallas", order=32, samples=4)'),
+    # Keep the KPM objectives' sweeps short.
+    ('temperature=0.05, method="kpm")', 'temperature=0.05, method="kpm", order=32, samples=4)'),
+    ('method="kpm", mesh=mesh)', 'method="kpm", mesh=mesh, order=32, samples=4)'),
 ]
 
 
@@ -83,18 +83,6 @@ def _ensure_demo_names(ns):
             ns["v0"] = np.ones((N, 4, 4), dt)
         if "delta" not in ns:
             ns["delta"] = np.full((N,), 0.1, dt)
-    rs = ns.get("rs")
-    if rs is not None and "v_sh" not in ns:
-        from bodge_tpu.parallel.pallas_sharded import (
-            pack_operator_sharded,
-            pack_vector_sharded,
-        )
-
-        z = np.ones((rs.sk.n_sites, 4, 4), np.complex64)
-        ns["v_sh"] = pack_vector_sharded(rs, z)
-        ns["b_sh"] = pack_operator_sharded(rs, ns["system"].host_data())
-        ns["order"] = 32
-        ns["scale"] = 6.0
 
 
 @pytest.mark.slow
